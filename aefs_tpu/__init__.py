@@ -1,7 +1,7 @@
-"""aefs_tpu — a TPU-native (JAX/XLA/Pallas) audio-effects framework.
+"""aefs_tpu — a device-native (JAX/XLA/Pallas) audio-effects framework.
 
 A from-scratch rebuild of the capabilities of the reference
-audio-effects-simulator (see /root/reference, SURVEY.md) designed TPU-first:
+audio-effects-simulator (SURVEY.md) designed accelerator-first:
 
 - Effects are pure functions over explicit state pytrees
   (reference: mutable ``Effect.process_into`` OO contract, core.py:81-86).

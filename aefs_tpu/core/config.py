@@ -13,7 +13,7 @@ CHANNELS_OUT = 2
 
 # File mode processes on-device in superblocks under a lax.scan; per-sample
 # semantics are independent of this size (see aefs_tpu/ops).  4096 keeps the
-# VPU busy while staying above every feedback lag in the default topologies.
+# device busy while staying above every feedback lag in the default topologies.
 FILE_SUPERBLOCK = 4096
 
 PLOT_FPS = 30          # plot-data pump rate (backend.py:62)

@@ -3,8 +3,8 @@
 File mode builds a fresh chain whose smoothed params start at their
 targets, so per-effect statics can be baked from the config for the
 whole-file fast path: the delay's lags (lag-affine residue scans instead
-of fixed-point iteration), the octaver's pitch ratio (shrinks the
-resample window), and the parallel container's recursion flag.
+of fixed-point iteration), the octaver's pitch ratio (exact whole-octave
+grid taps), and the parallel container's recursion flag.
 
 Shared by the engine (top-level chains) and ParallelChains (branches).
 """
@@ -43,7 +43,7 @@ def file_static_overrides(effects_config):
         elif etype == "octaver":
             # Clamp through the ParamSpec like the delay's lags: the
             # streaming target is the clamped value, and an out-of-range
-            # baked static would size the resample geometry from a ratio
+            # baked static would pick the grid taps from a ratio
             # the runtime never uses.
             from aefs_tpu.models.octaver import Octaver
 
@@ -55,24 +55,8 @@ def file_static_overrides(effects_config):
             # file_mode lets the model validate the comb topology against
             # the whole-file chunk solver's C <= L < 2C constraint at
             # BUILD time (actionable error) instead of dying at trace
-            # time deep inside ops/ringbuf.comb_bank_file_chunks.
-            # file_damp bakes the damping coefficient so the Pallas comb
-            # kernel can truncate the damping recursion to an exact FIR
-            # (h^J < 2^-40) — clamped through the model's ParamSpec like
-            # the delay's lags so the baked value equals the f32 runtime
-            # target bit-for-bit.
-            from aefs_tpu.models.reverb import Reverb
-
-            overrides[eid] = {
-                "file_mode": True,
-                # Default MUST come from the ParamSpec: a config that
-                # omits 'damp' glides/streams at the spec default, and a
-                # baked static that disagrees would damp file renders
-                # differently the moment the FIR budget covers it.
-                "file_damp": Reverb.PARAMS["damp"].clamp(
-                    float(params.get("damp",
-                                     Reverb.PARAMS["damp"].default))),
-            }
+            # time deep inside ops/ringbuf.comb_bank_file.
+            overrides[eid] = {"file_mode": True}
         elif etype in ("parallel", "multiband"):
             # multiband expands to a parallel container with the SAME
             # effect_id (core/multiband.py), so the flag lands on it.

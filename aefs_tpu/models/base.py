@@ -2,7 +2,7 @@
 
 The reference models an effect as a mutable object with
 ``prepare(sr, ci, co, blocksize)`` / ``process_into(x, out)``
-(core.py:81-86).  TPU-native form: an ``EffectModel`` instance holds only
+(core.py:81-86).  Functional form: an ``EffectModel`` instance holds only
 *static* topology (buffer lengths, lags, window tables — everything that
 shapes the compiled program), while all mutable audio state lives in an
 explicit pytree threaded through ``process``:
@@ -29,7 +29,7 @@ class EffectModel:
     # (serving pools dispatch every slot every block), independent of
     # params or audio.  Batched steppers map them to vmap axis None
     # (Chain.state_axes) so index ops on them stay batch-uniform — a
-    # per-stream ring-row index is a documented 12x TPU lowering trap
+    # per-stream ring-row index lowers to a per-stream sequential loop
     # (CLAUDE.md; ops/ringbuf.py:rowring_write).
     LOCKSTEP_STATE: tuple = ()
 

@@ -2,7 +2,7 @@
 quantization (new in this build — the lo-fi family next to the
 waveshaper's analog-style clipping).
 
-TPU decomposition (no per-sample loop):
+Parallel decomposition (no per-sample loop):
 
 - The decimation clock is the ring modulator's EXACT uint32 modular
   ramp (models/ringmod.py:phase_step_u32): sample n is "fresh" iff the

@@ -3,7 +3,7 @@ the reference's only modulated-read effect is the octaver's grain phasor,
 octaver.py:37-62; this reuses the same tap machinery for the classic
 modulation family).
 
-TPU decomposition: the read position p[n] = n - delay[n] is strictly
+Parallel decomposition: the read position p[n] = n - delay[n] is strictly
 increasing (the LFO slews |d(delay)/dn| = 2*pi*rate*depth/fs << 1 at every
 legal param draw), so the tap is the octaver's feedforward fractional read
 (ops/ringbuf.py:fractional_read_cubic — one 4-wide sliced gather, no
@@ -22,11 +22,10 @@ Parity: float64 per-sample oracle (tests/oracles.py:OracleChorus)
 Perf note: streaming keeps the per-descriptor gather tap (a 256-sample
 block is far under the 5.33 ms deadline either way), but whole-file
 mode overrides ``process_file`` with the flanger's dense one-hot tap
-operator (models/flanger.py rationale): the vmapped-dynamic_slice
-gather over ~900k per-sample descriptors measured 76.6 ms on the TPU
-(243x realtime — the documented per-batch-starts cliff, CLAUDE.md);
-chunked dense contractions batched 8 chunks per scan step replace it
-with VPU comparisons + MXU matvecs.  Tap positions and weights are
+operator (models/flanger.py rationale): a vmapped-dynamic_slice gather
+with ~900k per-sample starts is replaced by chunked dense contractions,
+batched 8 chunks per scan step — elementwise comparisons plus small
+matrix products.  Tap positions and weights are
 bitwise the ones the gather path computes; only the 4-term summation
 order differs (~eps, far under the chorus's documented -42 dB relative
 quantization floor).
@@ -41,6 +40,7 @@ from jax import lax
 from aefs_tpu.core.params import ParamSpec
 from aefs_tpu.models.base import EffectModel
 from aefs_tpu.models.octaver import _two_sum
+from aefs_tpu.ops.precision import DOT_PRECISION
 from aefs_tpu.ops.ringbuf import cubic_onehot_matrix, fractional_read_cubic
 
 MAX_BASE_MS = 40.0
@@ -155,7 +155,7 @@ class Chorus(EffectModel):
             )  # (C, B, hl+CH)
             w = cubic_onehot_matrix(
                 base[None, None, :] - ca_s - 1, fr_s, hl + ch)
-            tap = jnp.einsum("cbns,cbs->cbn", w, ext)
+            tap = jnp.einsum("cbns,cbs->cbn", w, ext, precision=DOT_PRECISION)
             return None, tap
 
         _, taps = lax.scan(

@@ -4,7 +4,7 @@ completes the dynamics family with the standard soft-knee design from
 Giannoulis/Massberg/Reiss, "Digital Dynamic Range Compressor Design —
 A Tutorial and Analysis", JAES 2012).
 
-TPU-first decomposition.  The textbook detector
+Parallel decomposition.  The textbook detector
 
     env[n] = env[n-1] + coef(|x|>env ? att : rel) * (|x[n]| - env[n-1])
 

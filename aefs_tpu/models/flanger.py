@@ -11,7 +11,7 @@ Definition (per channel):
     s[n]  = cubic tap of v at distance d[n]  (fractional_read_cubic)
     y[n]  = (1-mix) * x[n] + mix * s[n]
 
-TPU decomposition — the recursion is through a tap at least D_MIN=24
+Parallel decomposition — the recursion is through a tap at least D_MIN=24
 samples in the past, so over a 256-sample chunk the within-chunk part
 of the read operator T is NILPOTENT: each application reaches at least
 D_MIN-2 = 22 samples further back (the cubic kernel reads 2 above its
@@ -29,12 +29,10 @@ depth_ms > base_ms draw ever hits it (the negative half-cycle of the
 LFO then sits at the clamp, exactly as the oracle does).
 
 Perf: the tap operator is materialized ONCE per chunk as a dense
-one-hot cubic-weight matrix and each sweep is one MXU contraction —
-the gather form (vmapped dynamic_slice with per-batch starts) measured
-~23 us/sweep on the TPU and put an 18.6 s file at 19x realtime; dense
-sweeps amortize the sequential N/D_MIN dependency chain (the physics
-of a half-millisecond feedback path) back into the hundreds-to-
-thousands-x range.  A further lever if ever needed: collapse the 12
+one-hot cubic-weight matrix and each sweep is one matrix contraction
+instead of a gather with per-batch starts; dense sweeps amortize the
+sequential N/D_MIN dependency chain (the physics of a half-millisecond
+feedback path).  A further lever if ever needed: collapse the 12
 sweeps to log2(12) matrix squarings of (I - fb*T_c)^-1
 (sum A^k = prod (I + A^(2^j))).
 
@@ -52,6 +50,7 @@ from jax import lax
 from aefs_tpu.core.params import ParamSpec
 from aefs_tpu.models.base import EffectModel
 from aefs_tpu.models.octaver import _two_sum
+from aefs_tpu.ops.precision import DOT_PRECISION
 from aefs_tpu.ops.ringbuf import (
     cubic_onehot_matrix,
     cubic_tap_weights,
@@ -141,12 +140,9 @@ class Flanger(EffectModel):
             # chunk), so build it once as a dense (C, CHUNK, ext) weight
             # matrix — four one-hot int comparisons carrying the cubic
             # Hermite tap weights — and every sweep becomes one small
-            # MXU contraction.  The gather form (vmapped dynamic_slice
-            # with per-batch starts, fractional_read_cubic) measured
-            # ~23 us per sweep on the TPU — the documented 12x
-            # per-batch-starts cliff (CLAUDE.md) — which put the file
-            # pass at 19x realtime; dense + the h/c split below measured
-            # 452x (PERF.md late round 3).
+            # matrix contraction instead of the gather form (vmapped
+            # dynamic_slice with per-batch starts, fractional_read_cubic),
+            # which repeats the gather on every sweep.
             # No wrap patch needed: d in [24, hist-2] keeps all four
             # taps strictly inside ext.
             ca = jnp.ceil(d).astype(jnp.int32)  # (C, CHUNK)
@@ -159,13 +155,14 @@ class Flanger(EffectModel):
             # sweeps iterate only the strictly-lower in-chunk quarter.
             w_h = weights[:, :, : self.hist_len]
             w_c = weights[:, :, self.hist_len:]
-            th = jnp.einsum("cns,cs->cn", w_h, hist)
+            th = jnp.einsum("cns,cs->cn", w_h, hist, precision=DOT_PRECISION)
             b = xc + fb * th
 
             v = jnp.zeros_like(xc)
             for _ in range(_SWEEPS):  # exact: T_c is nilpotent on the chunk
-                v = b + fb * jnp.einsum("cns,cs->cn", w_c, v)
-            tap = th + jnp.einsum("cns,cs->cn", w_c, v)
+                v = b + fb * jnp.einsum("cns,cs->cn", w_c, v,
+                                        precision=DOT_PRECISION)
+            tap = th + jnp.einsum("cns,cs->cn", w_c, v, precision=DOT_PRECISION)
             y = (1.0 - p["mix"]) * xc + p["mix"] * tap
 
             new_hist = jnp.concatenate([hist, v], axis=1)[:, -self.hist_len:]
@@ -206,7 +203,7 @@ class Flanger(EffectModel):
         ``process`` runs 12 dependent sweeps per 256-chunk at scan-step
         cadence and rebuilds the dense 4-tap operator every step — at
         file scale that is ~42k sequential matvecs plus ~3.5k sequential
-        VPU builds.  Here each scan step handles ``_FILE_BATCH`` chunks:
+        operator builds.  Here each scan step handles ``_FILE_BATCH`` chunks:
 
         - the LFO phase for EVERY chunk start comes from the parallel
           double-single ramp (``_ds_phase``) instead of the sequential
@@ -214,7 +211,7 @@ class Flanger(EffectModel):
         - ONE ``onehot_matrix`` compare builds all tap positions for the
           whole batch; the 4-tap cubic structure is recovered with static
           shifted slices (columns t0+k are column t0 shifted k), cutting
-          the VPU build ~4x vs four compare+FMA passes;
+          the operator build ~4x vs four compare+FMA passes;
         - the strictly-lower in-chunk quarter C is squared (C2 = C@C,
           C4 = C2@C2) as batch matmuls, so the exact Neumann solve
           (I-fb*C)^-1 = (I+fbC)(I+fb^2 C2)(I+fb^4 C4+fb^8 C4^2) —
@@ -273,12 +270,12 @@ class Flanger(EffectModel):
                 w[k][..., None] * lax.slice_in_dim(O, H - k, H - k + K, axis=3)
                 for k in range(4)
             )
-            c2 = jnp.einsum("bcnm,bcmk->bcnk", cm, cm)
-            c4 = jnp.einsum("bcnm,bcmk->bcnk", c2, c2)
+            c2 = jnp.einsum("bcnm,bcmk->bcnk", cm, cm, precision=DOT_PRECISION)
+            c4 = jnp.einsum("bcnm,bcmk->bcnk", c2, c2, precision=DOT_PRECISION)
             oh = O[..., :H]
 
             def mv(mat, z):
-                return jnp.einsum("cnm,cm->cn", mat, z)
+                return jnp.einsum("cnm,cm->cn", mat, z, precision=DOT_PRECISION)
 
             ys, vs = [], []
             for s in range(SB):
@@ -288,7 +285,8 @@ class Flanger(EffectModel):
                 hist_pad = jnp.pad(hist, ((0, 0), (0, 3)))
                 hstack = jnp.stack(
                     [hist_pad[:, k:k + H] for k in range(4)], axis=1)
-                th4 = jnp.einsum("cnh,cjh->cnj", oh[s], hstack)
+                th4 = jnp.einsum("cnh,cjh->cnj", oh[s], hstack,
+                                 precision=DOT_PRECISION)
                 th = sum(w[k][s] * th4[..., k] for k in range(4))
                 b = xc[s] + fb * th
                 # v = (I - fb*C)^-1 b, exact in 4 dependent matvecs.

@@ -2,7 +2,7 @@
 dynamics family: gate, compressor, limiter; the reference's only
 dynamics element is the gate, gate.py:6-42).
 
-Classic three-stage look-ahead design, each stage a parallel TPU op:
+Classic three-stage look-ahead design, each stage a parallel device op:
 
 1. **Window floor**: instantaneous gain target g_t[n] = min(1,
    ceiling/peak[n]) (peak = stereo-linked |x|), then the running min

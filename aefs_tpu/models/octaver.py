@@ -3,9 +3,9 @@
 Two read taps driven by phasors offset 0.5 apart, Hann crossfade gains,
 4-point Hermite interpolation (pitch_shift_kernel_cubic, octaver.py:17-82).
 
-TPU mapping: the phasor is affine per sample — p[n] = (p0 + n*step) mod 1 —
-so the whole kernel collapses into one parallel gather + interpolation
-(SURVEY.md §7: "ideal TPU work").  The octaver writes *raw input* into its
+Parallel mapping: the phasor is affine per sample — p[n] = (p0 + n*step)
+mod 1 — so the whole kernel collapses into one parallel gather +
+interpolation (SURVEY.md §7).  The octaver writes *raw input* into its
 ring, so there is no feedback recurrence at all.  The block-to-block phasor
 carry uses a TwoSum-compensated accumulator to keep long-run drift at the
 eps^2 level instead of a per-block eps random walk.
@@ -40,7 +40,7 @@ def _two_sum(a, b):
 
 # ---------------------------------------------------------------------------
 # Double-single (hi + lo float32) scalar arithmetic.  Every helper below is
-# branch-free and exact where stated, so it is safe inside jit/vmap on TPU.
+# branch-free and exact where stated, so it is safe inside jit/vmap.
 # ---------------------------------------------------------------------------
 
 def _split12(v):
@@ -186,30 +186,11 @@ class Octaver(EffectModel):
     }
 
     def __init__(self, fs, blocksize, channels=2, window_ms=40.0,
-                 file_semitones=None, resample_tile=None,
-                 grid_semitones=None, grid_phase_lock=False, **config):
+                 file_semitones=None, grid_semitones=None,
+                 grid_phase_lock=False, **config):
         super().__init__(fs, blocksize, channels)
         # Grain window; minimum size guards tiny rates (octaver.py:106).
         self.size = max(int(fs * float(window_ms) / 1000.0), 16)
-        # Banded-resample geometry (ops/pallas/resample.py): the per-tile
-        # position span is ratio * tile, so the window can shrink when the
-        # pitch ratio is baked static (file mode); streaming uses the
-        # worst case over the +-24 semitone param range.
-        # ``resample_tile`` overrides the streaming tile (the window, and
-        # with it the kernel's one-hot band work, scales ~4*tile).
-        if file_semitones is not None:
-            ratio = 2.0 ** (abs(float(file_semitones)) / 12.0)
-            self.rs_tile = 256 if ratio <= 2.0 else 128
-            span = int(np.ceil(ratio * self.rs_tile)) + 24
-        else:
-            self.rs_tile = int(resample_tile or 128)
-            span = 4 * self.rs_tile + 24
-        self.rs_window = -(-(span + 6) // 128) * 128
-        # Resampling needs whole tiles, and the low/high cluster split
-        # assumes clusters (span ratio*tile) are separated by >= size/2.
-        self.use_resample = (
-            blocksize % self.rs_tile == 0 and self.size > 2 * span
-        )
         # Whole-octave file mode: exact closed-form grid taps
         # (ops/gridtaps.py) — gather-free AND free of the float32
         # phase-accumulation floor (parity reaches -80 dBFS).
@@ -368,15 +349,8 @@ class Octaver(EffectModel):
         p2 = jnp.mod(p1 + 0.5, 1.0)
 
         hist = state["hist"]
-        if self.use_resample:
-            from aefs_tpu.ops.ringbuf import fractional_read_resample2
-
-            s1, s2 = fractional_read_resample2(
-                hist, mono, p1 * size, p2 * size, self.rs_tile, self.rs_window
-            )
-        else:
-            s1 = fractional_read_cubic(hist, mono, p1 * size)
-            s2 = fractional_read_cubic(hist, mono, p2 * size)
+        s1 = fractional_read_cubic(hist, mono, p1 * size)
+        s2 = fractional_read_cubic(hist, mono, p2 * size)
 
         two_pi = jnp.float32(2.0 * jnp.pi)
         g1 = 0.5 * (1.0 - jnp.cos(two_pi * p1))  # Hann crossfade (octaver.py:66-67)
@@ -426,8 +400,7 @@ class Octaver(EffectModel):
         # period S for e>0) and D-1 / R-1 are odd so gcd with the pow-2
         # modulus is 1 — the tiled values are bitwise the full-length ones
         # (same int32 residues -> same f32 quotients -> same cos).  One
-        # period of cos + a tile copy replaces N transcendental evals
-        # (35.5 -> 4.7 us at N=893k on v5e).
+        # period of cos + a tile copy replaces N transcendental evals.
         if e < 0:
             d = 1 << (-e)
             per = d * size
@@ -446,8 +419,7 @@ class Octaver(EffectModel):
         g2 = jnp.tile(g2p, k_tiles)[:n]
         # Materialize wet before the stereo broadcast: without the barrier
         # XLA duplicates the whole tap+gain producer chain into each
-        # consumer fusion of y (profiled as two ~0.08 ms fusions at the
-        # blend line); one (N,) write is ~6x cheaper.
+        # consumer fusion of y; one (N,) write is cheaper.
         wet = jax.lax.optimization_barrier(s1 * g1 + s2 * g2)
 
         # Exact phase advance: p(n) = mod(n * (1 - 2^e) / size, 1) — an

@@ -2,7 +2,7 @@
 this build — completes the classic modulation trio next to the chorus
 and tremolo; the reference has no swept-allpass effect).
 
-TPU decomposition: each allpass H(z) = (a + z^-1)/(1 + a z^-1) is the
+Parallel decomposition: each allpass H(z) = (a + z^-1)/(1 + a z^-1) is the
 recurrence y[n] = a[n] x[n] + x[n-1] - a[n] y[n-1] — a first-order
 affine recurrence whose MULTIPLIER varies per sample, which is exactly
 what the gate's hand-rolled Hillis scan already solves

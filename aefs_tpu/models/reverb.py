@@ -6,7 +6,7 @@ with hard clip.  L/R are decorrelated by +-0.3 ms lag jitter
 (reverb.py:158-177, :186-187).  Per-comb feedback derives from RT60:
 g = 10^(-3 L / fs / rt60) (reverb.py:205-206).
 
-TPU mapping: the comb bank is one vectorized ``comb_bank_block`` (a
+Parallel mapping: the comb bank is one vectorized ``comb_bank_block`` (a
 gather + first-order associative scan per fixed-point step — the bank axis
 is also the natural "model-parallel" shard axis, see parallel/); the short
 allpasses (5.0 / 1.7 ms < blocksize) are exact lag-affine scans over
@@ -54,16 +54,9 @@ class Reverb(EffectModel):
         max_delay_ms=200.0,
         max_pre_delay_ms=100.0,
         file_mode=False,
-        file_damp=None,
         **config,
     ):
         super().__init__(fs, blocksize, channels)
-        # Baked damping coefficient for the whole-file comb solve (None
-        # in streaming mode): enables the kernel's truncated-FIR damping
-        # when h is small (ops/pallas/comb.py).  The value is the
-        # ParamSpec-clamped config damp, so it equals the f32 runtime
-        # target the blockwise path glides at.
-        self.file_damp = None if file_damp is None else float(file_damp)
         self.ap_gain = float(allpass_gain)
         self.pre_size = max(1, int(fs * float(max_pre_delay_ms) / 1000.0) + 1)
 
@@ -84,7 +77,7 @@ class Reverb(EffectModel):
         if file_mode and self.comb_lmax >= 2 * self.comb_lmin:
             # The whole-file chunk solver needs one chunk size C with
             # C <= L < 2C for every comb lag (ops/ringbuf.py:
-            # comb_bank_file_chunks), i.e. max lag < 2 * min lag across
+            # comb_chunk), i.e. max lag < 2 * min lag across
             # both jittered sides.  Fail at build time with the knob the
             # user can actually fix, not at trace time inside the solver.
             raise ValueError(
@@ -185,13 +178,13 @@ class Reverb(EffectModel):
         return new_state, y
 
     def process_file(self, state, p, x):
-        """Whole-file fast path: the comb bank runs as a chunked
-        closed-form pass (ops/ringbuf.py:comb_bank_file — one T_h matmul
-        per min-lag chunk instead of a per-block fixed point), the allpass
-        diffusers as residue-class scans over the full signal, the
-        pre-delay as one gather.  Requires fresh (zero) reverb state, which
-        file mode guarantees (fresh chain per file, engine.py:86-99)."""
-        from aefs_tpu.ops.ringbuf import comb_bank_file_sums
+        """Whole-file fast path: the comb bank runs as one chunked
+        whole-signal solve (ops/ringbuf.py:comb_bank_file — the Triton
+        kernel on the GPU), the allpass diffusers as residue-class scans
+        over the full signal, the pre-delay as one gather.  Requires fresh
+        (zero) reverb state, which file mode guarantees (fresh chain per
+        file, engine.py:86-99)."""
+        from aefs_tpu.ops.ringbuf import comb_bank_file
 
         fs = jnp.float32(self.fs)
         rt60 = p["rt60_s"]
@@ -202,49 +195,30 @@ class Reverb(EffectModel):
         pre_out = jax.vmap(lambda h, xi: delay_read(h, xi, pre_d))(state["pre"], x)
         new_pre = ring_push(state["pre"], x)
 
-        # Both sides' comb banks in ONE chunked solve (B = 8): the T_h
-        # propagator is fetched once per chunk instead of once per side.
-        # Consumed CHUNK-MAJOR: the comb sum and the state tail are the
-        # only consumers, and flattening (M, 2B, C) to (2B, N) first
-        # would cost a whole-signal transpose copy per output.
+        # Both sides' comb banks in ONE solve (B = 8), each comb reading
+        # its side's pre-delayed signal.
         all_lags = self.comb_lags[0] + self.comb_lags[1]
         g_all = jnp.power(
             10.0,
             -3.0 * (jnp.asarray(all_lags, jnp.float32) / fs) / jnp.maximum(1e-3, rt60),
         )
-        side_of = (0,) * self.n_combs + (1,) * self.n_combs
-        # Fused solve: per-side comb SUMS plus the last-3-chunk damped
-        # tail — the only two things this path reads — so the kernel
-        # never writes the full per-comb y/damped tensors to HBM.
-        y_msc, d3, c = comb_bank_file_sums(
-            pre_out, all_lags, g_all, damp, side_of, 2,
-            h_static=self.file_damp,
-        )
-
-        n = x.shape[-1]
         b = self.n_combs
-        lmax = self.comb_lmax
-        # Side-major (n_sides, M, C): each side's sum flattens for free.
-        comb_y = [y_msc[side].reshape(-1)[:n][None] for side in range(2)]
+        side_of = (0,) * b + (1,) * b
+        y, damped = comb_bank_file(pre_out, all_lags, g_all, damp, side_of=side_of)
+        comb_y = [jnp.sum(y[:b], axis=0)[None], jnp.sum(y[b:], axis=0)[None]]
 
-        # Final ring state w = x + g*damped over the last ``lmax`` true
-        # samples, extracted from the damped tail chunks (tiny arrays).
-        m = y_msc.shape[1]
-        k = min(m, -(-lmax // c) + 1)  # <= 3 since lmax < 2C
-        off = m * c - k * c  # padded-coordinate start of the tail window
-        d_tail = jnp.moveaxis(d3[3 - k :], 0, 1).reshape(2 * b, k * c)
+        # Final ring state w = x + g*damped over the last ``lmax`` samples.
+        n = x.shape[-1]
+        lmax = self.comb_lmax
         take = min(n, lmax)
-        start = n - take
-        d_win = jax.lax.slice(d_tail, (0, start - off), (2 * b, n - off))
-        x_tail = jnp.repeat(pre_out[:, start:n], b, axis=0)  # (2B, take) tiny
-        w_win = x_tail + g_all[:, None] * d_win
+        x_tail = jnp.repeat(pre_out[:, n - take :], b, axis=0)  # (2B, take)
+        w_win = x_tail + g_all[:, None] * damped[:, n - take :]
         if take < lmax:
             w_win = jnp.concatenate(
                 [jnp.zeros((2 * b, lmax - take), x.dtype), w_win], axis=1
             )
-        lps_all = d_tail[:, n - 1 - off]
+        lps_all = damped[:, n - 1]
 
-        new_combs = [w_win[side * b : (side + 1) * b] for side in range(2)]
-        new_lps = [lps_all[side * b : (side + 1) * b] for side in range(2)]
-
+        new_combs = [w_win[:b], w_win[b:]]
+        new_lps = [lps_all[:b], lps_all[b:]]
         return self._diffuse_and_mix(state, p, x, comb_y, new_pre, new_combs, new_lps)

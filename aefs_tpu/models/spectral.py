@@ -4,7 +4,7 @@ Overlap-add noise reduction: 50%-overlap Hann-windowed frames, per-bin
 binary mask against a linear threshold, temporal mask smoothing
 (alpha = 0.8), mono analysis applied to both channels (spectral.py:44-100).
 
-TPU mapping: all hops inside a processing block are framed and rfft'd as a
+Parallel mapping: all hops inside a processing block are framed and rfft'd as a
 batch; the only sequential piece — the temporal mask IIR across frames —
 is a first-order associative scan over the frame axis.  The hop is pinned
 to the *stream* block size (256) regardless of the on-device superblock, so

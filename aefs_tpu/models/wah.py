@@ -4,7 +4,7 @@ build — the classic pedal family; the biquad is the static-coefficient
 filter, the phaser the norm-preserving allpass sweep; this is the
 MODULATED resonator).
 
-TPU decomposition — a swept filter's recurrence has a DIFFERENT matrix
+Parallel decomposition — a swept filter's recurrence has a DIFFERENT matrix
 at every sample, so neither the biquad's constant-companion scan nor
 its whole-file Toeplitz solve (both LTI-only) apply.  The Chamberlin
 SVF state s = (low, band) advances as

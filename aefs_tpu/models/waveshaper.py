@@ -3,7 +3,7 @@
 The reference's only "distortion" is the hard clip applied after every wet
 mix (delay.py:96, reverb.py:277, engine.py:104); this build exposes it as a
 first-class effect with selectable transfer curves: hard clip, tanh, and a
-normalized cubic soft clip.  Pure elementwise VPU work; XLA fuses it into
+normalized cubic soft clip.  Pure elementwise work; XLA fuses it into
 whatever surrounds it.
 """
 

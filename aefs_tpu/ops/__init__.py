@@ -1,4 +1,4 @@
-"""TPU-native DSP op library: blocked scans, ring buffers, FFT framing.
+"""Device-native DSP op library: blocked scans, ring buffers, FFT framing.
 
 These ops replace the reference's seven Numba per-sample kernels
 (SURVEY.md "native-code ledger") with XLA-parallel block algorithms.

@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
+from aefs_tpu.ops.precision import DOT_PRECISION
 
 
 def pow2_exponent(semitones):
@@ -120,10 +121,9 @@ def _interleave_rows(rows):
     into time order.
 
     The obvious ``stack(rows, -1).reshape`` makes XLA materialize a
-    layout-transposed copy of the whole grain tensor (minor dim d defeats
-    the (8,128) tiling): two copies + reshapes cost ~1.3 ms of the 6 ms
-    flagship file pass.  When the row length is lane-aligned the
-    interleave is instead evaluated as d one-hot MXU contractions
+    layout-transposed copy of the whole grain tensor (a small minor dim
+    d).  When the row length is a multiple of 128 the interleave is
+    instead evaluated as d one-hot matrix contractions
     (exact: one-hot rows select single f32 values, summands are disjoint),
     the same trick as ops/ringbuf.py:lane_dynamic_slice."""
     d = len(rows)
@@ -142,7 +142,7 @@ def _interleave_rows(rows):
         a = rows[c].reshape(n_rows * (m // 128), 128)
         term = jax.lax.dot_general(
             a, sel[c], (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
+            precision=DOT_PRECISION,
         )
         out = term if out is None else out + term
     return out.reshape(n_rows, m * d)
@@ -170,9 +170,8 @@ def _slice1(vec, start, length: int):
 
     With an unbatched ``start`` (the phase-locked pool / any single
     stream), a vmapped ``lax.dynamic_slice`` lowers to one static-batch
-    slice (~14 us measured on v5e for (128, 2304)->(128, 128)).  With a
-    PER-BATCH start it degrades ~12x (175 us; an explicit one-descriptor
-    gather is no better, 225 us) — which is why the pool's grid serving
+    slice.  With a PER-BATCH start it becomes a gather with one start per
+    stream — which is why the pool's grid serving
     mode phase-locks all slots to one shared scalar phase instead of
     carrying per-slot phases (server/pool.py)."""
     return jax.lax.dynamic_slice(vec, (start,), (length,))

@@ -1,433 +1,165 @@
-"""Pallas TPU kernel: chunked comb-bank solve with a VMEM-resident
-propagator.
+"""Pallas kernel (Triton route): whole-signal damped comb bank.
 
-The XLA formulation of the whole-file comb bank (ops/ringbuf.py:
-comb_bank_file) re-reads the (C, C) in-chunk damping propagator T_h from
-HBM on every one of ~N/C chunks — ~5 GB of traffic for an 18.6 s file,
-which dominates the reverb's cost.  This kernel runs the same recurrence
-as a sequential pallas grid where T_h (transposed, ~8 MB float32) is built
-ONCE into VMEM scratch on the first grid step and stays resident; per
-chunk the work is one (B, C) x (C, C) MXU matmul plus elementwise updates,
-with the chunk inputs/outputs pipelined automatically by the block specs.
-
-Math (identical to comb_bank_file, reverb.py:33-46 rewritten on the damped
-state, fresh initial state):
+The reverb's file path solves, per comb b with static lag L_b,
 
     y[n]      = x[n - L_b] + g_b * damped[n - L_b]
     damped[n] = h * damped[n-1] + (1 - h) * y[n]
 
-with chunk C chosen so C <= L_b < 2C: reads land in the previous two
-chunks, carried in persistent VMEM scratch.
+from fresh state (reverb.py:33-46 rewritten on the damped state).  The
+signal is walked in chunks of C samples with C <= L_b < 2C, so chunk m
+reads only chunks m-1 and m-2 and everything it reads is already final.
+
+One program per (file, comb) walks the chunks in an in-kernel loop; the
+plain-XLA form (ops/ringbuf.py:_comb_bank_scan) is a ``lax.scan`` with a
+(C, C) propagator product per step.  Per chunk the program
+
+1. loads the lag-shifted input and damped windows (the damped one from
+   its own output, written by earlier iterations — a block barrier orders
+   the store before the next load, which is volatile so no stale cached
+   line is read);
+2. solves the in-chunk damping as rows of W samples: one (R, W) x (W, W)
+   product with the row propagator T[i, j] = h^(j-i), then the carry
+   into each row as an (R, R) weighted sum of the row ends — the whole
+   recurrence, for any h in [0, 1), in full f32 (IEEE dot, no TF32);
+3. stores y and damped for the chunk.
+
+The chunk is held in a power-of-two block of R * W lanes, masked to C.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-# Tap budget for the static-h truncated-FIR damping: taps = J+1 with
-# J = ceil(-40/log2 h), so the true cutoff is h <= 2^(-40/31) ~= 0.409
-# (NOT 2^(-40/32) ~= 0.42 — the +1 for the t=0 tap); larger h keeps the
-# Hillis scan (the FIR's throughput cost grows with taps while the
-# scan's latency is flat).
-_FIR_TAP_BUDGET = 32
+from aefs_tpu.ops.precision import DOT_PRECISION
+
+_W = 32  # row width of the in-chunk damping solve
 
 
-def fir_damp_weights(h_static: float, budget: int = _FIR_TAP_BUDGET):
-    """Truncated-FIR damping weights for a STATIC damping coefficient:
-    damped[n] = sum_t w_t y[n-t] with w_t = (1-h) h^t, truncated at the
-    first J with h^(J+1) <= 2^-40 — the dropped tail is < 2^-40 *
-    max|damped|, two decades below the f32 ulp of the result, so the FIR
-    is numerically EXACT relative to the recursion in f32.  Returns None
-    when h needs more than ``budget`` taps (the caller keeps the
-    latency-bound Hillis scan, PERF.md round 4)."""
-    h = float(np.float32(h_static))
-    if not (0.0 <= h < 1.0):
-        return None
-    if h == 0.0:
-        return (np.float32(1.0),)
-    j = int(math.ceil(-40.0 / math.log2(h)))
-    if j + 1 > budget:
-        return None
-    return tuple(np.float32((1.0 - h) * h**t) for t in range(j + 1))
+def block_geometry(c: int):
+    """(block, rows) for chunk size ``c``: a power-of-two block of at
+    least 16 rows of ``_W`` lanes (the Triton dot's minimum extent)."""
+    blk = max(16 * _W, pl.next_power_of_2(int(c)))
+    return blk, blk // _W
 
 
-def _make_kernel(lags, side_of, c):
-    b = len(lags)
-    s = max(side_of) + 1
+def damping_tables(h, c: int):
+    """Propagators of the in-chunk damping solve for damping ``h``
+    (any shape; tables get h's shape as leading dims): T (W, W),
+    hp (W,) = h^(j+1), K (R, R) = h^(W(r-1-s)) for s < r, hr (R,) = h^(W r).
+    """
+    _, r = block_geometry(c)
+    h = jnp.asarray(h, jnp.float32)[..., None, None]
+    i = jnp.arange(_W)[:, None]
+    j = jnp.arange(_W)[None, :]
+    t = jnp.where(j >= i, jnp.power(h, jnp.maximum(j - i, 0).astype(jnp.float32)), 0.0)
+    hp = jnp.power(h[..., 0, :], jnp.arange(1, _W + 1, dtype=jnp.float32))
+    rr = jnp.arange(r)[:, None]
+    ss = jnp.arange(r)[None, :]
+    k = jnp.where(
+        ss < rr,
+        jnp.power(h, (_W * jnp.maximum(rr - 1 - ss, 0)).astype(jnp.float32)),
+        0.0,
+    )
+    hr = jnp.power(h[..., 0, :], (_W * jnp.arange(r)).astype(jnp.float32))
+    return t, hp, k, hr
 
-    def kernel(h_ref, g_ref, x_ref, y_ref, damped_ref,
-               t_t, hpow, prev2, prev1, dlast, px2, px1):
-        i = pl.program_id(0)
-        h = h_ref[0, 0]
 
-        @pl.when(i == 0)
-        def _init():
-            # Transposed propagator: t_t[i, j] = h^(j - i) for j >= i, so
-            # damped = c @ t_t contracts over the input index i.
-            # jnp.power handles the h = 0 edge (0^0 = 1 on the diagonal).
-            ii = lax.broadcasted_iota(jnp.int32, (c, c), 0)
-            jj = lax.broadcasted_iota(jnp.int32, (c, c), 1)
-            d = jj - ii
-            t_t[...] = jnp.where(
-                d >= 0, jnp.power(h, jnp.maximum(d, 0).astype(jnp.float32)), 0.0
-            )
-            hpow[...] = jnp.power(
-                h, (1.0 + lax.broadcasted_iota(jnp.int32, (1, c), 1)).astype(jnp.float32)
-            )
-            prev2[...] = jnp.zeros((b, c), jnp.float32)
-            prev1[...] = jnp.zeros((b, c), jnp.float32)
-            dlast[...] = jnp.zeros((b, 1), jnp.float32)
-            px2[...] = jnp.zeros((s, c), jnp.float32)
-            px1[...] = jnp.zeros((s, c), jnp.float32)
+def _make_kernel(n_combs: int, c: int, m_chunks: int, interpret: bool):
+    blk, r = block_geometry(c)
+    pre = 2 * c  # zero history ahead of the signal in x and damped
 
-        xc = x_ref[...]  # (S, C) raw source chunk
-        g = g_ref[0, :]  # (B,)
+    def kernel(lag_ref, side_ref, g_ref, h_ref, t_ref, hp_ref, k_ref, hr_ref, x_ref,
+               y_ref, d_ref):
+        p = pl.program_id(0)
+        f = p // n_combs
+        b = p % n_combs
+        lag = lag_ref[b]
+        side = side_ref[b]
+        g = g_ref[f, b]
+        h = h_ref[f]
+        t = t_ref[f]
+        hp = hp_ref[f]
+        kk = k_ref[f]
+        hr = hr_ref[f]
 
-        # x[n - L_b]: the raw three-chunk window carried in VMEM; with
-        # C <= L < 2C the lag-shifted chunk starts at offset 2C - L_b
-        # (lags are compile-time topology).  Extracted with the same
-        # lane-rotation trick as the damped window (Mosaic has no
-        # unaligned slicing): right-roll by L + C puts the window start
-        # at lane 0.  This replaces the XLA-side construction of B
-        # lag-shifted signal copies — the dominant input-build cost of
-        # the batched file pass.
-        ext_x = jnp.concatenate([px2[...], px1[...], xc], axis=1)  # (S, 3C)
-        xs = jnp.concatenate(
-            [
-                pltpu.roll(
-                    ext_x[side_of[bi] : side_of[bi] + 1, :], lag + c, 1
-                )[:, :c]
-                for bi, lag in enumerate(lags)
-            ],
-            axis=0,
-        )  # (B, C)
-
-        # damped[n - L_b]: the carried two-chunk window rotated left by
-        # 2C - L_b and truncated to C.  Mosaic has no unaligned slicing
-        # (ref- or value-level), but lane rotation is a native primitive:
-        # roll(ext, -(2C - L)) puts the window start at lane 0, and the
-        # wrap-around lanes land beyond index C where they are never read.
-        ext = jnp.concatenate([prev2[...], prev1[...]], axis=1)  # (B, 2C)
-        rows = []
-        for bi, lag in enumerate(lags):
-            # left-roll by (2C - lag) == right-roll by lag (roll requires a
-            # non-negative shift): result[k] = ext[(k + 2C - lag) mod 2C].
-            rolled = pltpu.roll(ext[bi : bi + 1, :], lag, 1)
-            rows.append(rolled[:, :c])
-        r = jnp.concatenate(rows, axis=0)  # (B, C)
-
-        y = xs + g[:, None] * r
-        y_ref[0] = y
-        cvec = (1.0 - h) * y
-        damped = (
-            jnp.dot(cvec, t_t[...], preferred_element_type=jnp.float32)
-            + dlast[...] * hpow[...]
+        lane = lax.broadcasted_iota(jnp.int32, (blk,), 0)
+        live = lane < c
+        flat = lax.broadcasted_iota(jnp.int32, (r, _W), 0) * _W + lax.broadcasted_iota(
+            jnp.int32, (r, _W), 1
         )
-        damped_ref[0] = damped
+        row_end = lax.broadcasted_iota(jnp.int32, (r, _W), 1) == _W - 1
+        zeros = jnp.zeros((blk,), jnp.float32)
+        for z in range(2):  # the pre-signal damped history is zero
+            plgpu.store(d_ref.at[f, b, pl.ds(z * c, blk)], zeros, mask=live)
+        if not interpret:
+            plgpu.debug_barrier()
 
-        prev2[...] = prev1[...]
-        prev1[...] = damped
-        dlast[...] = damped[:, c - 1 : c]
-        px2[...] = px1[...]
-        px1[...] = xc
-
-    return kernel
-
-
-def _make_sums_kernel(lags, side_of, c, n_sides, k_chunks, last_step, last_j,
-                      fir_w=None):
-    b = len(lags)
-    s = max(side_of) + 1
-
-    def kernel(h_ref, g_ref, x_ref, ysum_ref, dtail_ref,
-               prev2, prev1, dlast, px2, px1, ext_ref, xs_ref, *fir_scr):
-        i = pl.program_id(0)
-        h = h_ref[0, 0]
-        yext = fir_scr[0] if fir_w is not None else None
-
-        @pl.when(i == 0)
-        def _init():
-            prev2[...] = jnp.zeros((b, c), jnp.float32)
-            prev1[...] = jnp.zeros((b, c), jnp.float32)
-            dlast[...] = jnp.zeros((b, 1), jnp.float32)
-            px2[...] = jnp.zeros((s, c), jnp.float32)
-            px1[...] = jnp.zeros((s, c), jnp.float32)
-            dtail_ref[...] = jnp.zeros((3, b, c), jnp.float32)
-            if yext is not None:
-                yext[...] = jnp.zeros((b, (k_chunks + 1) * c), jnp.float32)
-
-        g = g_ref[0, :]  # (B,)
-        xks = x_ref[...]  # (S, K*C) raw source chunks
-        lane = lax.broadcasted_iota(jnp.int32, (b, c), 1)
-
-        # K chunks per grid step, recurrence carried in registers across
-        # the unrolled inner loop: the single-chunk grid was bound by the
-        # ~1.1 us/step sequential-grid overhead (635 steps for an 18.6 s
-        # file), not by compute — both the old propagator matmul and the
-        # Hillis scan are sub-microsecond per chunk.
-        cp2, cp1, cdl = prev2[...], prev1[...], dlast[...]
-
-        # Batched input-window extraction: the comb's INPUT taps depend
-        # only on the raw signal, so all K chunks' lag-shifted windows
-        # are one static-offset copy per comb per GRID STEP (c <= lag
-        # < 2c puts the start 2c-lag in (0, c]) — replacing the former
-        # per-chunk (1, 3C) lane rolls (K x B rolls -> B window copies,
-        # the largest VPU cost in the kernel after the damping scan).
-        # Ref-mediated copies: Mosaic cannot concat VALUES whose lane
-        # offsets differ across rows ("offset mismatch on non-concat
-        # dimension"), but ref stores at static offsets lower cleanly.
-        ext_ref[:, 0:c] = px2[...]
-        ext_ref[:, c : 2 * c] = px1[...]
-        ext_ref[:, 2 * c :] = xks
-        for bi, lag in enumerate(lags):
-            si = side_of[bi]
-            start = 2 * c - lag
-            xs_ref[bi : bi + 1, :] = ext_ref[
-                si : si + 1, start : start + k_chunks * c
-            ]
-        xs_all = xs_ref[...]  # (B, K*C)
-
-        outs = []
-        for j in range(k_chunks):
-            xc = xks[:, j * c : (j + 1) * c]  # (S, C)
-            xs = xs_all[:, j * c : (j + 1) * c]  # (B, C)
-
-            # Feedback window damped[n - lag] from the two carried damped
-            # chunks (computed this step — must stay per-chunk).
-            ext = jnp.concatenate([cp2, cp1], axis=1)  # (B, 2C)
-            r = jnp.concatenate(
-                [
-                    pltpu.roll(ext[bi : bi + 1, :], lag, 1)[:, :c]
-                    for bi, lag in enumerate(lags)
-                ],
-                axis=0,
-            )  # (B, C)
-
-            y = xs + g[:, None] * r
-
-            # The downstream consumer (reverb.process_file) only reads
-            # the per-side SUM of the bank — reduce on-chip.
-            outs.append(
-                jnp.concatenate(
-                    [
-                        sum(y[bi : bi + 1] for bi in range(b)
-                            if side_of[bi] == si)
-                        for si in range(n_sides)
-                    ],
-                    axis=0,
-                )
+        def chunk(m, d_last):
+            n0 = m * c
+            src = pre + n0 - lag
+            xs = plgpu.load(x_ref.at[f, side, pl.ds(src, blk)], mask=live, other=0.0)
+            dr = plgpu.load(
+                d_ref.at[f, b, pl.ds(src, blk)], mask=live, other=0.0,
+                volatile=True,
             )
+            y = xs + g * dr
+            plgpu.store(y_ref.at[f, b, pl.ds(n0, blk)], y, mask=live)
 
-            # In-chunk damping damped[n] = h*damped[n-1] + (1-h)y[n] as a
-            # lane-axis Hillis-Steele with h^s by repeated squaring —
-            # O(C log C) VPU work in place of the (C, C) propagator
-            # matmul (which also ran at bf16 MXU precision: -55 dB vs the
-            # float64 oracle where this scan reaches -139 dB).  The
-            # cross-chunk carry folds into lane 0 of the addend.
-            # (Two measured dead ends, both slope-timed on the v5e with a
-            # 200-iteration contrast: a per-level weight VECTOR from the
-            # traced h (round 3: 0.596 vs 0.538 ms — in-kernel weight
-            # construction per grid step) and a STATIC-h variant feeding
-            # host-precomputed folded weight vectors as a kernel input
-            # (round 4: 0.567 vs 0.562 ms traced).  The scan is LATENCY
-            # bound — ~11 strictly sequential roll->mul->add levels per
-            # chunk x 635 chunks at ~55-60 cycles of dependency latency
-            # per level accounts for the measured 0.436 ms regardless of
-            # per-level op count; level count is pinned at ceil(log2 c)
-            # and c at the comb-lag geometry, so this is the kernel's
-            # floor, not an op-selection artifact.  See PERF.md.)
-            if fir_w is not None:
-                # Static-h truncated-FIR damping (fir_damp_weights): the
-                # recursion's impulse response decays below 2^-40 within
-                # len(fir_w) taps, so damped is an exact short FIR over
-                # the carried y window — len(fir_w) independent
-                # slice-mul-adds (throughput, tree-reduced) instead of
-                # ~11 strictly sequential scan levels (latency).  The
-                # traced h is IGNORED on this path: the file-mode
-                # contract bakes damp at the f32 runtime target
-                # (core/fileopts.py), exactly like the delay's file lag.
-                base = (j + 1) * c
-                yext[:, base : base + c] = y
-                terms = [
-                    fir_w[t] * yext[:, base - t : base + c - t]
-                    for t in range(len(fir_w))
-                ]
-                while len(terms) > 1:
-                    terms = [
-                        terms[t] + terms[t + 1]
-                        for t in range(0, len(terms) - 1, 2)
-                    ] + ([terms[-1]] if len(terms) % 2 else [])
-                damped = terms[0]
-            else:
-                acc = (1.0 - h) * y + jnp.where(lane == 0, h * cdl, 0.0)
-                hs = h
-                step = 1
-                while step < c:
-                    rolled = pltpu.roll(acc, step, 1)
-                    acc = acc + jnp.where(lane >= step, hs * rolled, 0.0)
-                    hs = hs * hs
-                    step *= 2
-                damped = acc
+            cin = ((1.0 - h) * y).reshape(r, _W)
+            loc = pl.dot(cin, t, precision=DOT_PRECISION)
+            ends = jnp.sum(jnp.where(row_end, loc, 0.0), axis=1)
+            carry = jnp.sum(kk * ends[None, :], axis=1) + hr * d_last
+            full = loc + carry[:, None] * hp[None, :]
+            d_new = jnp.sum(jnp.where(flat == c - 1, full, 0.0))
+            plgpu.store(
+                d_ref.at[f, b, pl.ds(pre + n0, blk)], full.reshape(blk), mask=live
+            )
+            if not interpret:
+                plgpu.debug_barrier()
+            return d_new
 
-            # Only the damped tail survives the file pass (final ring
-            # state reads < 2 chunks): flush the last three true chunks
-            # once, at the grid step holding chunk m-1 (later padded
-            # chunks keep computing the ring-out harmlessly).
-            if j == last_j:
-                @pl.when(i == last_step)
-                def _flush_tail(d2=cp2, d1=cp1, d0=damped):
-                    dtail_ref[0] = d2
-                    dtail_ref[1] = d1
-                    dtail_ref[2] = d0
-
-            cp2, cp1 = cp1, damped
-            if fir_w is None:
-                cdl = damped[:, c - 1 : c]
-
-        # Side-major stack: the reverb consumes each side's sum as ONE
-        # contiguous (N,) signal, so (n_sides, M, C) makes its flatten a
-        # free reshape instead of a strided whole-signal copy (~58 us of
-        # the 18.6 s flagship pass at reverb.py:219).
-        ysum_ref[...] = jnp.stack(outs, axis=1)  # (S_out, K, C)
-        prev2[...], prev1[...], dlast[...] = cp2, cp1, cdl
-        if fir_w is not None:
-            # Carry the step's last y chunk for next step's FIR reach-back.
-            yext[:, 0:c] = yext[:, k_chunks * c : (k_chunks + 1) * c]
-        # Raw-signal carry for the next grid step: the last two chunks of
-        # this step's extended window (aligned static slices).
-        px2[...] = ext_ref[:, k_chunks * c : (k_chunks + 1) * c]
-        px1[...] = ext_ref[:, (k_chunks + 1) * c : (k_chunks + 2) * c]
+        lax.fori_loop(0, m_chunks, chunk, jnp.float32(0.0))
 
     return kernel
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("lags", "side_of", "c", "n_sides", "k_chunks",
-                     "h_static", "interpret"),
-)
-def comb_bank_file_pallas_sums(x, g, h, lags: tuple, c: int,
-                               side_of: tuple, n_sides: int,
-                               k_chunks: int = 32,
-                               h_static: float | None = None,
-                               interpret: bool = False):
-    """Fused-output variant of ``comb_bank_file_pallas``: returns
-    (ysum, d_tail) where ysum: (n_sides, M, C) is the per-side comb-bank
-    sum and d_tail: (3, B, C) holds the damped state for the last three
-    true chunks (zero rows for chunks before the signal start).  HBM
-    traffic drops from 2 * (M, B, C) writes (~114 MB per 18.6 s file, of
-    which the reverb reads <7%) to one (M, S, C) write (~7 MB); the
-    damping solve runs as an in-kernel log-step scan instead of an MXU
-    propagator matmul; and each grid step processes ``k_chunks`` chunks
-    to amortize the ~1.1 us sequential-grid step overhead.  The chunk
-    count is padded up to a k_chunks multiple (padded chunks ring out
-    with zero input); the first M output rows are the true ones."""
-    b = len(lags)
-    s, n_pad = x.shape
-    m = n_pad // c
-    k = max(1, min(k_chunks, m))
-    steps = -(-m // k)
-    m2 = steps * k
-    if m2 > m:
-        x = jnp.pad(x, ((0, 0), (0, (m2 - m) * c)))
-    last_step, last_j = (m - 1) // k, (m - 1) % k
-    h_arr = jnp.asarray(h, jnp.float32).reshape(1, 1)
-    g_arr = jnp.asarray(g, jnp.float32).reshape(1, b)
-
-    spec_scalar = pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)
-    spec_g = pl.BlockSpec((1, b), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    spec_x = pl.BlockSpec((s, k * c), lambda i: (0, i), memory_space=pltpu.VMEM)
-    spec_ysum = pl.BlockSpec(
-        (n_sides, k, c), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-    )
-    # One VMEM-resident block revisited by every grid step, flushed once.
-    spec_dtail = pl.BlockSpec(
-        (3, b, c), lambda i: (0, 0, 0), memory_space=pltpu.VMEM
-    )
-
-    fir_w = None if h_static is None else fir_damp_weights(h_static)
-    scratch = [
-        pltpu.VMEM((b, c), jnp.float32),   # damped chunk m-2
-        pltpu.VMEM((b, c), jnp.float32),   # damped chunk m-1
-        pltpu.VMEM((b, 1), jnp.float32),   # damped[-1] carry
-        pltpu.VMEM((s, c), jnp.float32),   # raw x chunk m-2
-        pltpu.VMEM((s, c), jnp.float32),   # raw x chunk m-1
-        pltpu.VMEM((s, (k + 2) * c), jnp.float32),  # extended window
-        pltpu.VMEM((b, k * c), jnp.float32),        # per-comb input taps
-    ]
-    if fir_w is not None:
-        # Carried y window for the truncated-FIR damping: [prev step's
-        # last chunk | this step's K chunks].
-        scratch.append(pltpu.VMEM((b, (k + 1) * c), jnp.float32))
-
-    ysum, d_tail = pl.pallas_call(
-        _make_sums_kernel(lags, side_of, c, n_sides, k, last_step, last_j,
-                          fir_w=fir_w),
-        out_shape=(
-            jax.ShapeDtypeStruct((n_sides, m2, c), jnp.float32),
-            jax.ShapeDtypeStruct((3, b, c), jnp.float32),
-        ),
-        grid=(steps,),
-        in_specs=[spec_scalar, spec_g, spec_x],
-        out_specs=(spec_ysum, spec_dtail),
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(h_arr, g_arr, x)
-    return ysum[:, :m], d_tail
 
 
 @functools.partial(
     jax.jit, static_argnames=("lags", "side_of", "c", "interpret")
 )
-def comb_bank_file_pallas(x, g, h, lags: tuple, c: int,
-                          side_of: tuple = None, interpret: bool = False):
-    """x: (S, M*C) raw source signals (right-padded); comb b reads source
-    row ``side_of[b]`` at lag ``lags[b]`` (defaults to the identity map,
-    S == B).  The kernel carries the raw chunks in VMEM and extracts each
-    comb's lag-shifted window in-kernel, so no per-comb shifted copies of
-    the signal are ever materialized in HBM.
-    Returns (y, damped) as (M, B, C)."""
-    b = len(lags)
-    side_of = tuple(range(b)) if side_of is None else tuple(side_of)
-    s, n_pad = x.shape
-    m = n_pad // c
-    h_arr = jnp.asarray(h, jnp.float32).reshape(1, 1)
-    g_arr = jnp.asarray(g, jnp.float32).reshape(1, b)
+def comb_bank_pallas(x, g, h, lags: tuple, side_of: tuple, c: int,
+                     interpret: bool = False):
+    """Comb bank over F files at once.
 
-    spec_scalar = pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)
-    spec_g = pl.BlockSpec((1, b), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    # Raw chunks stream as (S, C) column blocks of the 2-D signal — no
-    # reshape or transpose anywhere (a (S, 1, C) block of an (S, M, C)
-    # view violates Mosaic's sublane-divisibility rule).
-    spec_x = pl.BlockSpec((s, c), lambda i: (0, i), memory_space=pltpu.VMEM)
-    spec_chunk = pl.BlockSpec((1, b, c), lambda i: (i, 0, 0), memory_space=pltpu.VMEM)
-
-    y, damped = pl.pallas_call(
-        _make_kernel(lags, side_of, c),
+    x: (F, S, N) raw source signals; comb b reads source ``side_of[b]`` at
+    lag ``lags[b]``; g: (F, B) feedback gains; h: (F,) damping.
+    Returns (y, damped), each (F, B, M*C) with M = ceil(N / C)."""
+    f_n, _, n = x.shape
+    b_n = len(lags)
+    m = -(-n // c)
+    blk, _ = block_geometry(c)
+    pre = 2 * c
+    # Zero history ahead, and room for a whole block past the last chunk.
+    x_p = jnp.pad(x.astype(jnp.float32), ((0, 0), (0, 0), (pre, m * c - n + blk)))
+    t, hp, k, hr = damping_tables(h, c)
+    lag_arr = jnp.asarray(lags, jnp.int32)
+    side_arr = jnp.asarray(side_of, jnp.int32)
+    y, d = pl.pallas_call(
+        _make_kernel(b_n, c, m, interpret),
         out_shape=(
-            jax.ShapeDtypeStruct((m, b, c), jnp.float32),
-            jax.ShapeDtypeStruct((m, b, c), jnp.float32),
+            jax.ShapeDtypeStruct((f_n, b_n, m * c + blk), jnp.float32),
+            jax.ShapeDtypeStruct((f_n, b_n, pre + m * c + blk), jnp.float32),
         ),
-        grid=(m,),
-        in_specs=[spec_scalar, spec_g, spec_x],
-        out_specs=(spec_chunk, spec_chunk),
-        scratch_shapes=[
-            pltpu.VMEM((c, c), jnp.float32),   # T_h^T, resident across chunks
-            pltpu.VMEM((1, c), jnp.float32),   # h^(j+1)
-            pltpu.VMEM((b, c), jnp.float32),   # damped chunk m-2
-            pltpu.VMEM((b, c), jnp.float32),   # damped chunk m-1
-            pltpu.VMEM((b, 1), jnp.float32),   # damped[-1] carry
-            pltpu.VMEM((s, c), jnp.float32),   # raw x chunk m-2
-            pltpu.VMEM((s, c), jnp.float32),   # raw x chunk m-1
-        ],
+        grid=(f_n * b_n,),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(h_arr, g_arr, x)
-    return y, damped
+        name="comb_bank",
+    )(lag_arr, side_arr, jnp.asarray(g, jnp.float32),
+      jnp.asarray(h, jnp.float32), t, hp, k, hr, x_p)
+    return y[:, :, : m * c], d[:, :, pre : pre + m * c]

@@ -2,7 +2,7 @@
 
 The reference implements every IIR recurrence as a per-sample Numba loop
 (biquad_kernel filter.py:8-40, comb damping reverb.py:39-41, gate smoothing
-gate.py:33-36).  On TPU a per-sample loop serializes the VPU; instead we
+gate.py:33-36).  On the device a per-sample loop serializes; instead we
 solve each recurrence for a whole block at once:
 
 - first-order affine recurrences  y[n] = m[n]*y[n-1] + b[n]
@@ -21,6 +21,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+from aefs_tpu.ops.precision import DOT_PRECISION
 
 
 def affine_scan(mult, add, init, axis: int = 0):
@@ -55,8 +57,8 @@ def affine_scan_long(mult, add, init, chunk: int = 512):
     The in-chunk scan is a hand-rolled Hillis-Steele over contiguous
     lane shifts (pad + static slice), NOT ``lax.associative_scan``: the
     Blelloch lowering emits strided slices in the lane dimension
-    (``[0:c:2]``), which cost a layout pass each on TPU — measured 122 vs
-    3.4 ms/run for the flagship gate's (1744, 512) scan.  Same math, one
+    (``[0:c:2]``), which cost a layout pass each on the platform this was
+    first tuned for.  Same math, one
     reassociation (max observed divergence 6e-7, far under the -80 dBFS
     oracle bar).
 
@@ -96,9 +98,8 @@ def affine_hillis(mult, add, init):
     """``affine_scan`` over the LAST axis as a hand-rolled Hillis-Steele:
     log2(N) levels of contiguous pad + static slice + FMA on the (a, b)
     pair.  Same math as ``lax.associative_scan`` up to reassociation, but
-    none of its Blelloch strided lane slices (``[0:c:2]``), which cost a
-    layout pass each on TPU (see ``affine_scan_long``) — profiled on the
-    batched serving step, the gate's (S, 256) lane scan drops ~2.5x.
+    none of its Blelloch strided lane slices (``[0:c:2]``; see
+    ``affine_scan_long``).
 
     mult, add: (..., N) with matching shapes (broadcast ``mult`` first);
     init: broadcastable to one last-axis slice.  Returns y = (..., N).
@@ -199,7 +200,7 @@ def const_affine_hillis(h, add, init):
       batched build wrote/read ~33 MB per step at S=128, N=256 where
       this touches log2(N) x the (S, B, N) 1 MB operand;
     - vs ``lax.associative_scan``: no Blelloch strided lane slices
-      (the documented TPU layout-pass trap, see ``affine_scan_long``).
+      (see ``affine_scan_long``).
 
     Same math as ``affine_scan`` up to reassociation (constant
     coefficient makes every combine exact in structure; observed
@@ -250,15 +251,12 @@ def lag_affine_scan(base, a, lag: int, row_chunk: int = 128):
     allpasses in file mode: lag 81 -> 11k rows; the 375 ms delay: 50 rows)
     uses the same closed form as the comb/biquad solvers: within a chunk
     of C rows the response is one lower-triangular Toeplitz matmul
-    T[j, i] = a^(j-i) (MXU), and the cross-chunk carries are an
+    T[j, i] = a^(j-i), and the cross-chunk carries are an
     a^C-coefficient affine scan over the (M/C, lag) chunk summaries —
     ~2 passes over the signal instead of log2(M) scan levels.
 
     The blocking is EXACT at any C; C only trades einsum FLOPs
-    (∝ N·C) against carry-scan levels (log2(M/C)).  Measured on v5e at
-    N=893k: lag 82 solves in 36 us at C=128 vs 118 us at C=512, and the
-    one-chunk matmul replaces a 69 us associative scan at lag 18000
-    (M=50) for under the slope noise floor.
+    (∝ N·C) against carry-scan levels (log2(M/C)).
 
     base: (N,) float32.  Returns y: (N,).
     """
@@ -277,13 +275,8 @@ def lag_affine_scan(base, a, lag: int, row_chunk: int = 128):
     chunks = jnp.pad(padded, ((0, mp * c - m), (0, 0))).reshape(mp, c, lag)
     h = jnp.power(a, jnp.arange(c + 1, dtype=dt))  # a^j, j = 0..C
     t_a = toeplitz_lower(h, c)
-    # Precision stays HIGHEST (6-pass f32): a round-4 device A/B at the
-    # flagship's three lag geometries measured HIGH (3-pass) saving only
-    # ~5 us per call (the einsum is bandwidth-bound, not FLOP-bound)
-    # while degrading HIGHEST-relative agreement to ~-98 dB — most of
-    # the margin against the -80 dBFS parity bar for nothing.
     y_loc = jnp.einsum(
-        "ji,kil->kjl", t_a, chunks, precision=lax.Precision.HIGHEST
+        "ji,kil->kjl", t_a, chunks, precision=DOT_PRECISION
     )
     # Cross-chunk carries: s_k = a^C * s_{k-1} + y_loc[k, -1, :], s_{-1} = 0.
     s = affine_scan(h[c], y_loc[:, -1, :], jnp.zeros((lag,), dt), axis=0)
@@ -388,7 +381,7 @@ def linrec2_file(v, a1, a2, y1, y2, chunk: int = 256):
     ops/ringbuf.py:comb_bank_file):
 
     - chunk-local response: one lower-triangular Toeplitz matmul against
-      the impulse response h (MXU work, ~2 passes over the signal instead
+      the impulse response h (~2 passes over the signal instead
       of the associative scan's ~40),
     - boundary responses: y[-1] contributes h[j+1], y[-2] contributes
       -a2*h[j] (exact, by induction on the recurrence),
@@ -410,7 +403,7 @@ def linrec2_file(v, a1, a2, y1, y2, chunk: int = 256):
 
     t_mat = toeplitz_lower(h, c)
     y_local = jnp.einsum(
-        "mi,ji->mj", vp, t_mat, precision=lax.Precision.HIGHEST
+        "mi,ji->mj", vp, t_mat, precision=DOT_PRECISION
     )
 
     h1 = h[1 : c + 1]  # response to y[-1] = 1
@@ -440,7 +433,7 @@ def linrec2_file_fir(x, b0, b1, b2, a1, a2, x1, x2, y1, y2,
     plus two rank-1 x-boundary terms, then the same 2x2 carry scan as
     ``linrec2_file``.  Folding removes the shifted-x materializations
     (two lane-offset concats that XLA lowers as whole-signal
-    dynamic-update-slices, ~0.1 ms of the 18.6 s flagship pass) and the
+    dynamic-update-slices) and the
     separate v = B*x pass.
 
     Boundary algebra: within chunk k, v[0] reads x[-1] (via b1) and
@@ -466,7 +459,7 @@ def linrec2_file_fir(x, b0, b1, b2, a1, a2, x1, x2, y1, y2,
             + b2 * jnp.concatenate([z1, z1, h[: c - 2]]))
     t_mat = toeplitz_lower(h_ba, c)
     y_base = jnp.einsum(
-        "mi,ji->mj", xp, t_mat, precision=lax.Precision.HIGHEST
+        "mi,ji->mj", xp, t_mat, precision=DOT_PRECISION
     )
 
     # Previous-chunk x boundary samples (known, not part of the carry).
@@ -503,8 +496,7 @@ def linrec2(v, a1, a2, y1, y2):
     s[n] = [y[n], y[n-1]], accumulated by a hand-rolled Hillis-Steele
     over contiguous lane shifts, the codebase's standard form for
     lane-axis scans (``lax.associative_scan`` there lowers to strided
-    slices — catastrophic at the gate's (1744, 512) scale, measured
-    NEUTRAL at this one's 256 lanes; see affine_scan_long).
+    slices; see affine_scan_long).
     """
     n = v.shape[0]
     dt = v.dtype
@@ -704,7 +696,7 @@ def biquad_block(x, b0, b1, b2, a1, a2, state):
     if n >= 1024:
         # Long signals (file mode / superblocks): chunked Toeplitz solve
         # with the FIR folded into the chunk impulse response
-        # (linrec2_file_fir) — one MXU matmul per 256-chunk versus the
+        # (linrec2_file_fir) — one matrix product per 256-chunk versus the
         # associative scan's ~40 memory passes, and no shifted-x
         # materializations.  Streaming blocks keep the associative scan:
         # the matmul form loses ~12 dB under per-block coefficient glides

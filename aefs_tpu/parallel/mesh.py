@@ -1,7 +1,7 @@
 """Multi-chip scaling: sharded multi-stream processing over a device mesh.
 
 The reference has no model parallelism (SURVEY.md §2: two processes + an
-audio thread).  The TPU-native scaling axes for this domain are:
+audio thread).  The device scaling axes for this domain are:
 
 - **data ("dp")**: independent audio streams/sessions — embarrassingly
   parallel, sharded over the ``data`` mesh axis.  This is the production
@@ -9,7 +9,7 @@ audio thread).  The TPU-native scaling axes for this domain are:
 - **model ("tp")**: parallel branches *inside* an effect — the reverb's
   comb bank (4 combs per side, reverb.py:234-241) shards over the
   ``model`` axis; the comb-sum reduction becomes an XLA-inserted
-  reduce/all-gather over ICI.  The conv reverb's IR-partition axis is the
+  reduce/all-gather between the cards.  The conv reverb's IR-partition axis is the
   other model axis: its frequency-domain delay line (spec_hist) shards
   per partition, the per-partition complex MAC stays local and the
   partition sum is one psum of a (hop+1,) spectrum per block
@@ -154,7 +154,7 @@ class ShardedStreams:
                     out_axes=(state_axes, 0),
                 )(state, targets, x)
                 # Global clip meter: reduction over every stream on every
-                # device — XLA lowers this to an ICI all-reduce.
+                # device — XLA lowers this to an all-reduce.
                 peak = jnp.max(jnp.abs(y))
                 return state, y, peak
 

@@ -1,5 +1,6 @@
 """Launcher: spawn the WebSocket backend and the UI frontend, monitor both,
-tear down together (mirror of reference run.py:21-65).
+tear down together (mirror of reference run.py:21-65).  Mic mode needs the
+optional ``sounddevice`` package; without it the backend serves files only.
 
     python run.py [--backend-port 8765] [--ui-port 8050]
 """
@@ -14,38 +15,17 @@ import sys
 import time
 
 
-def check_and_install_dependencies():
-    """Auto-bootstrap optional audio deps (reference run.py:8-19 behavior):
-    mic capture needs sounddevice, which cloud/TPU images omit.  Failure is
-    fine — the backend degrades to file-only mode (engine.py:152-154
-    analogue).  Opt out with AEFS_NO_AUTO_DEPS=1."""
-    if os.environ.get("AEFS_NO_AUTO_DEPS") == "1":
-        return
-    try:
-        import sounddevice  # noqa: F401
-    except Exception:
-        print("sounddevice not found; attempting install (mic mode)...")
-        try:
-            subprocess.run(
-                [sys.executable, "-m", "pip", "install", "sounddevice"],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
-            print("sounddevice unavailable — mic mode disabled, file mode works")
-
-
 def run_services(backend_port: int, ui_port: int):
-    check_and_install_dependencies()
     env = dict(os.environ, PORT=str(backend_port), BACKEND_PORT=str(backend_port))
     procs = {}
     # SIGTERM must tear the children down too (KeyboardInterrupt only
     # covers Ctrl-C): without this, killing the launcher leaks the
-    # backend + UI processes — and a leaked backend can hold the TPU.
+    # backend + UI processes — and a leaked backend holds the GPU.
     def _terminate(_sig, _frame):
         # One-shot: once teardown has begun, a second SIGTERM (impatient
         # supervisor, `docker stop` escalation) must not interrupt the
         # finally-block child cleanup — that would leak the backend, and
-        # a leaked backend holds the TPU (CLAUDE.md hard rule).
+        # a leaked backend holds the GPU's memory.
         signal.signal(signal.SIGTERM, signal.SIG_IGN)
         raise KeyboardInterrupt
 
@@ -76,7 +56,7 @@ def run_services(backend_port: int, ui_port: int):
         # the one-shot SIGTERM handler only covers the SIGTERM->SIGTERM
         # case — a Ctrl-C-initiated teardown interrupted by SIGTERM (or a
         # second Ctrl-C) would otherwise abandon the cleanup mid-loop and
-        # leak the backend holding the TPU.
+        # leak the backend holding the GPU.
         signal.signal(signal.SIGTERM, signal.SIG_IGN)
         signal.signal(signal.SIGINT, signal.SIG_IGN)
         for p in procs.values():

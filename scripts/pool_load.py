@@ -7,7 +7,7 @@ per-session block round-trip latency and the pool's achieved aggregate
 throughput vs realtime.
 
 Self-contained by default: spawns the pool server as a subprocess
-(AEFS_PLATFORM=cpu works for smoke runs; on the TPU host leave it unset),
+(AEFS_PLATFORM=cpu works for smoke runs; on the GPU host leave it unset),
 waits for the port, runs the load, tears the server down.
 
     python scripts/pool_load.py --sessions 8 --blocks 200
@@ -15,7 +15,7 @@ waits for the port, runs the load, tears the server down.
 
 The reference architecture serves ONE client per backend process
 (backend.py:73-75); this script is the working demonstration that one
-TPU-backed pool process serves many.
+GPU-backed pool process serves many.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ async def run_session(url, n_blocks, blocksize, fs, realtime, wiggle, results, i
     rng = np.random.default_rng(idx)
     lats = []
     plats = []
-    # Generous open timeout: a TPU-backed pool may be mid-compile or
+    # Generous open timeout: a GPU-backed pool may be mid-compile or
     # mid-dispatch when many sessions connect at once.
     async with websockets.connect(url, max_size=2**24, open_timeout=120) as ws:
         ready = json.loads(await ws.recv())
@@ -81,8 +81,8 @@ async def run_session(url, n_blocks, blocksize, fs, realtime, wiggle, results, i
 
 
 def wait_port(port, timeout=420.0):
-    """TPU pools compile their vmapped step before serving — allow for a
-    cold-cache compile plus the dev tunnel's device-claim delay."""
+    """Pools compile their vmapped step before serving — allow for a
+    cold-cache compile."""
     t0 = time.time()
     while time.time() - t0 < timeout:
         with socket.socket() as s:

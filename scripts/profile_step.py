@@ -1,11 +1,9 @@
 """Per-source-line device-time profiler for the hot programs.
 
 Runs a target program a few times under ``jax.profiler.trace``, filters
-the trace to TensorCore lanes, and aggregates op durations by the HLO
-metadata's ``source`` attribution — a table of "which line of this repo
-costs what on the device".  Every round-2 perf win (the gate scan's
-lane-axis associative_scan, the delay ring's batched-index DUS, the
-gridtaps interleave transpose) was found with exactly this view.
+the trace to the GPU's device lanes, and aggregates op durations by the
+HLO metadata's ``source`` attribution — a table of "which line of this
+repo costs what on the device".
 
     python scripts/profile_step.py file      # whole-file flagship pass
     python scripts/profile_step.py stream    # batched S=128 serving step
@@ -16,8 +14,8 @@ The stream target mirrors the PRODUCT pool step (server/pool.py): per-slot
 parameter targets, lockstep state axes, and — with ``--grid`` — the
 phase-locked exact-grid octaver (batch-uniform ``grid_phase``).
 
-Needs the real TPU (AEFS_PLATFORM unset); on CPU the trace has no
-TensorCore lanes and the script reports module wall only.
+Needs the GPU; on the CPU the trace has no device lanes and the script
+reports module wall only.
 """
 
 from __future__ import annotations
@@ -27,13 +25,15 @@ import collections
 import glob
 import gzip
 import json
+import os
 import sys
 import tempfile
 import time
 
 import numpy as np
 
-sys.path.insert(0, __file__.rsplit("/", 2)[0])  # repo root (bench import)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)  # repo root (bench import)
 
 
 def report(trace_dir, runs, module_prefix, top):
@@ -41,21 +41,19 @@ def report(trace_dir, runs, module_prefix, top):
     if not files:
         print("no trace produced (CPU backend?)")
         return
-    import os
-
     f = max(files, key=os.path.getmtime)  # newest trace, not longest name
     ev = json.loads(gzip.open(f).read().decode())["traceEvents"]
-    tpu_pids = set()
+    dev_pids = set()
     for e in ev:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             nm = (e.get("args") or {}).get("name", "")
-            if "TPU" in nm and "Host" not in nm:
-                tpu_pids.add(e["pid"])
+            if "GPU" in nm and "Host" not in nm:
+                dev_pids.add(e["pid"])
     by_src = collections.Counter()
     by_op = collections.Counter()
     mod = 0.0
     for e in ev:
-        if e.get("ph") != "X" or e.get("pid") not in tpu_pids or "dur" not in e:
+        if e.get("ph") != "X" or e.get("pid") not in dev_pids or "dur" not in e:
             continue
         if e["name"].startswith(module_prefix):
             mod += e["dur"]
@@ -90,17 +88,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from bench import CONFIGS, FS, rain_like, file_static_overrides, wait_for_device
+    from bench import CONFIGS, FS, rain_like, file_static_overrides
     from aefs_tpu.core.chain import build_chain
+    from aefs_tpu.utils.platform import enable_compile_cache
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/aefs_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-    wait_for_device()
+    enable_compile_cache()
     cfgs = CONFIGS[args.config]
-    d = tempfile.mkdtemp(prefix="aefs_prof_")
+    d = tempfile.mkdtemp(prefix="aefs_prof_", dir=os.path.join(REPO, ".scratch"))
 
     if args.target == "file":
         superblock = 4096
@@ -109,17 +103,15 @@ def main():
         tg = ch.targets(tm)
         x = rain_like()
         pad = (-len(x)) % superblock
-        xd = jnp.asarray(np.concatenate([x, np.zeros((pad, 1), np.float32)]).T)
-        float(jnp.sum(xd))
+        xd = jax.device_put(np.concatenate([x, np.zeros((pad, 1), np.float32)]).T)
         fn = jax.jit(ch.process_whole)
         st = ch.init_state({c["effect_id"]: c["params"] for c in cfgs})
-        st2, y = fn(st, tg, xd)
-        float(jnp.sum(jnp.abs(y[:, -4:])))
+        jax.block_until_ready(fn(st, tg, xd))
         t0 = time.time()
         with jax.profiler.trace(d):
             for _ in range(args.runs):
                 st2, y = fn(st, tg, xd)
-            float(jnp.sum(jnp.abs(y[:, -4:])))
+            jax.block_until_ready(y)
         print(f"wall: {(time.time()-t0)/args.runs*1000:.2f} ms/run")
         report(d, args.runs, "jit_process_whole", args.top)
     else:
@@ -137,7 +129,7 @@ def main():
         )
         axes = ch.state_axes()
         # Per-slot targets like the product pool (grid_phase stays the
-        # batch-uniform phase-locked scalar — bench_multistream_one).
+        # batch-uniform phase-locked scalar — bench._batched_serving_step).
         tg = tuple(
             {k: (v if k == "grid_phase"
                  else jnp.broadcast_to(jnp.asarray(v), (s,)))
@@ -156,14 +148,13 @@ def main():
         xx = jnp.asarray(
             0.1 * np.random.default_rng(3).standard_normal((s, 1, n)), jnp.float32
         )
-        st, y = fn(st, tg, xx)
-        float(jnp.sum(y))
+        st, y = jax.block_until_ready(fn(st, tg, xx))
         runs = max(args.runs, 10)
         t0 = time.time()
         with jax.profiler.trace(d):
             for _ in range(runs):
                 st, y = fn(st, tg, xx)
-            float(jnp.sum(y[:, :, -4:]))
+            jax.block_until_ready(y)
         print(f"wall: {(time.time()-t0)/runs*1000:.2f} ms/step")
         report(d, runs, "jit__lambda", args.top)
 

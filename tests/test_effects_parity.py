@@ -1,4 +1,4 @@
-"""Golden-waveform parity: each TPU effect vs its float64 NumPy oracle.
+"""Golden-waveform parity: each effect vs its float64 NumPy oracle.
 
 The acceptance bar is <= -80 dBFS peak error (BASELINE.json) for EVERY
 effect, octaver included: its phase ramp is a pure function of the
@@ -657,10 +657,10 @@ def test_octaver_f32_floor_is_the_reference_kernel_floor():
     octaver.py:17-82, :77-80).  Simulating EXACTLY the reference
     arithmetic with a float32 phasor against the float64 oracle measures
     ~-46 dBFS on this signal — WORSE than our -60 dBFS bar, because the
-    TPU implementation's compensated split-float phasor (models/octaver.py)
+    framework's compensated split-float phasor (models/octaver.py)
     rounds once per block instead of once per sample.  -60 dBFS is
     therefore strictly below the reference kernel's own information floor,
-    not an artifact of the TPU port.  (The file-mode fast path escapes the
+    not an artifact of the port.  (The file-mode fast path escapes the
     floor entirely for whole-octave ratios via the exact integer grid —
     test_gridtaps.py holds it to -80 dBFS.)
     """

@@ -179,18 +179,16 @@ def test_reverb_near_violating_topology_file_parity():
 
 def test_file_damp_default_matches_param_spec():
     """A config that omits 'damp' glides/streams at the ParamSpec default,
-    so the baked file_damp static MUST equal that same default — a
-    disagreeing literal would damp file renders differently from the
-    runtime target the moment the FIR tap budget covers it
-    (fir_damp_weights qualifies h=0.3 at 25 taps)."""
-    from aefs_tpu.core.fileopts import file_static_overrides
+    and the file path reads the same runtime target: a file render with
+    'damp' omitted is bitwise the render at the spec default."""
     from aefs_tpu.models.reverb import Reverb
-    from aefs_tpu.ops.pallas.comb import fir_damp_weights
 
-    cfg = [{"effect_id": "r", "type": "reverb", "params": {}}]
-    ov = file_static_overrides(cfg)
     spec = Reverb.PARAMS["damp"]
-    assert ov["r"]["file_damp"] == spec.clamp(spec.default)
-    # and the default is inside the FIR window, so the baked value is
-    # actually exercised (not silently falling back to the scan)
-    assert fir_damp_weights(spec.default) is not None
+    base = {"rt60_s": 1.2, "pre_delay_ms": 0, "mix_dry": 0.7, "mix_wet": 0.5}
+    x = noise(3 * 4096, amp=0.2)
+    omitted = run([{"effect_id": "r", "type": "reverb", "params": base}],
+                  x, fast=True)
+    explicit = run([{"effect_id": "r", "type": "reverb",
+                     "params": {**base, "damp": spec.clamp(spec.default)}}],
+                   x, fast=True)
+    assert np.array_equal(np.asarray(omitted), np.asarray(explicit))

@@ -1,4 +1,4 @@
-"""Multi-session pool server: many clients, one batched TPU dispatch.
+"""Multi-session pool server: many clients, one batched device dispatch.
 
 Two concurrent sessions stream blocks through a shared-topology pool with
 PER-SESSION parameters; their outputs must reflect their own params, and
